@@ -5,8 +5,9 @@ scene/seed/spp on the bench device and refuses to report a throughput
 when the per-pixel RMSE exceeds the gate — a sign-flipped or half-black
 render scores ~50-100% RMSE where fp/kernel-order wobble stays <1%.
 
-Regenerate ONLY after an intentional estimator change (and say so in the
-commit message): python scripts/gen_bench_goldens.py"""
+Regenerate ONLY after an intentional estimator or scene change (and say so
+in the commit message): python scripts/gen_bench_goldens.py [name ...]
+(no names: all three)."""
 import os
 import sys
 
@@ -27,7 +28,7 @@ DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 
 def scenes():
-    from mitsuba_tpu.render.scene import (
+    from mitsuba_jax.render.scene import (
         cornell_box, cornell_box_specular, textured_mesh_scene,
     )
 
@@ -36,11 +37,13 @@ def scenes():
     yield "bench_cfg3", textured_mesh_scene(RES, RES, backend="cluster")
 
 
-def main():
-    from mitsuba_tpu.integrators.path import PathConfig, render
+def main(names=()):
+    from mitsuba_jax.integrators.path import PathConfig, render
 
     cfg = PathConfig(max_depth=DEPTH, spp=SPP)
     for name, scene in scenes():
+        if names and name not in names:
+            continue
         img, _ = render(scene, cfg, seed=SEED)
         img = np.asarray(img)
         np.savez_compressed(os.path.join(DIR, name + ".npz"), mean=img)
@@ -48,4 +51,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,7 +1,9 @@
 """Test config: force CPU backend with 8 virtual devices.
 
-Multi-chip sharding paths are validated on a virtual device mesh (the real
-environment has a single TPU chip); renders in tests are small enough for CPU.
+Multi-device sharding paths are validated on a virtual device mesh;
+renders in tests are small enough for CPU. Tests marked `gpu` need a card:
+they run their GPU work in a child process (this one stays on the CPU) and
+skip where nvidia-smi finds none.
 A pytest plugin may import jax before this conftest runs, so we use
 jax.config.update (effective until backend initialization) rather than env
 vars alone.
@@ -30,6 +32,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: test measured >=5s on the CPU backend; excluded "
         "from the fast lane (pytest -m 'not slow', <6 min)")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (skips without one); run on "
+        "the card with pytest tests/ -m gpu")
 
 
 def pytest_collection_modifyitems(config, items):
@@ -67,3 +72,17 @@ def _clear_jax_caches_between_modules():
     import jax as _jax
 
     _jax.clear_caches()
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless an NVIDIA GPU is present (asked of nvidia-smi, so this
+    process never opens the card)."""
+    import shutil
+    import subprocess
+
+    smi = shutil.which("nvidia-smi")
+    found = smi is not None and subprocess.run(
+        [smi, "-L"], capture_output=True, timeout=60).returncode == 0
+    if not found:
+        pytest.skip("no NVIDIA GPU (nvidia-smi finds none)")

@@ -22,8 +22,8 @@ DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 
 def _camera(b, origin, target, fov=35.0):
-    from mitsuba_tpu.core import transform as tf
-    from mitsuba_tpu.render.camera import make_perspective
+    from mitsuba_jax.core import transform as tf
+    from mitsuba_jax.render.camera import make_perspective
 
     cam = make_perspective(tf.look_at(origin, target, (0, 1, 0)), fov, 1.0)
     b.set_camera(cam, RES, RES)
@@ -32,8 +32,8 @@ def _camera(b, origin, target, fov=35.0):
 def scene_bunny_lambert():
     """bunny.ply, lambertian, constant environment — geometry + BVH +
     env sampling path."""
-    from mitsuba_tpu.io.meshio import load_ply
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.io.meshio import load_ply
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder()
     lm = b.materials.lambertian((0.65, 0.6, 0.5))
@@ -51,8 +51,8 @@ def scene_bunny_lambert():
 def scene_ward_spheres():
     """Analytic spheres with test_bsdf.xml materials (ward + phong +
     roughglass) under an area light."""
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder()
     floor_m = b.materials.lambertian((0.5, 0.5, 0.5))
@@ -78,7 +78,7 @@ def scene_ward_spheres():
 
 
 def scene_cornell():
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.render.scene import cornell_box
 
     return cornell_box(RES, RES), 4
 
@@ -87,8 +87,8 @@ def scene_instanced_cluster():
     """TRUE instancing on the work-list cluster backend: three instances
     of one sphere-mesh group over a checker floor (gates the shared
     object-space tables + per-instance transforms end to end)."""
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder()
     tex = b.textures.checkerboard(bright=(0.6, 0.6, 0.6),
@@ -118,10 +118,10 @@ def scene_instanced_cluster():
 def scene_volumetric_tank():
     """Shape-attached scattering medium (Beer-Lambert + HG in-scatter +
     boundary-aware NEE) — gates the volpath_media estimator."""
-    from mitsuba_tpu.core import transform as tf
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.camera import make_perspective
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.core import transform as tf
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.camera import make_perspective
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder()
     glass = b.materials.dielectric(int_ior=1.0, ext_ior=1.0)
@@ -144,10 +144,10 @@ def scene_volumetric_tank():
 def scene_sss_slab():
     """Dipole subsurface slab under an area light — gates the SSS cache
     (incl. round-4 indirect irradiance) through the path tracer."""
-    from mitsuba_tpu.core import transform as tf
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.camera import make_perspective
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.core import transform as tf
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.camera import make_perspective
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder()
     skin = b.materials.lambertian((0.3, 0.25, 0.2))
@@ -172,7 +172,7 @@ def scene_guided_cornell():
     """Cornell box rendered with guided sampling (one-sample-MIS mixture
     from a learned directional histogram) — gates the guiding estimator's
     unbiasedness against its own golden."""
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.render.scene import cornell_box
 
     return cornell_box(RES, RES), 4, "guided"
 
@@ -194,21 +194,21 @@ def render_stats(scene, depth, spp, seed, kind="path"):
     subsurface-cached path | guided = learned-mixture sampling)."""
     import jax.numpy as jnp
 
-    from mitsuba_tpu.integrators import PathConfig, render
-    from mitsuba_tpu.integrators.path import path_trace
-    from mitsuba_tpu.render.sampler import Sampler, sample_position
+    from mitsuba_jax.integrators import PathConfig, render
+    from mitsuba_jax.integrators.path import path_trace
+    from mitsuba_jax.render.sampler import Sampler, sample_position
 
     cfg = PathConfig(max_depth=depth, spp=spp, remat=False)
     guide = None
     if kind == "sss" and scene.subsurface is not None \
             and scene.subsurface.irradiance is None:
-        from mitsuba_tpu.core.types import replace as _replace
-        from mitsuba_tpu.subsurface.dipole import prepare_scene_irradiance
+        from mitsuba_jax.core.types import replace as _replace
+        from mitsuba_jax.subsurface.dipole import prepare_scene_irradiance
 
         scene = _replace(
             scene, subsurface=prepare_scene_irradiance(scene, seed=99))
     if kind == "guided":
-        from mitsuba_tpu.integrators.guiding import make_guide
+        from mitsuba_jax.integrators.guiding import make_guide
 
         v0 = np.asarray(scene.geom.v0)
         ext = v0.max(0) - v0.min(0)
@@ -228,7 +228,7 @@ def render_stats(scene, depth, spp, seed, kind="path"):
     uv = jnp.stack([(px + offset[:, 0]) / w, (py + offset[:, 1]) / h], -1)
     ray = scene.camera.sample_ray(uv)
     if kind == "media":
-        from mitsuba_tpu.integrators.volpath import volpath_media_trace
+        from mitsuba_jax.integrators.volpath import volpath_media_trace
 
         L, _ = volpath_media_trace(scene, ray, sampler, cfg)
     elif kind == "guided":

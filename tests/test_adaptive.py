@@ -2,9 +2,9 @@
 noisy pixels, and matches the plain estimator in expectation."""
 import numpy as np
 
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.integrators.adaptive import adaptive_render
-from mitsuba_tpu.render.scene import cornell_box
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.integrators.adaptive import adaptive_render
+from mitsuba_jax.render.scene import cornell_box
 
 
 def test_adaptive_converges_and_matches():

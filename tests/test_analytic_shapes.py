@@ -4,13 +4,13 @@ cylinder.cpp)."""
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.camera import make_perspective
-from mitsuba_tpu.render.intersect import ray_intersect, ray_test
-from mitsuba_tpu.render.records import Ray
-from mitsuba_tpu.render.scene import SceneBuilder
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.camera import make_perspective
+from mitsuba_jax.render.intersect import ray_intersect, ray_test
+from mitsuba_jax.render.records import Ray
+from mitsuba_jax.render.scene import SceneBuilder
 
 
 def _sphere_scene():
@@ -97,7 +97,7 @@ def test_sphere_emitter_matches_tessellated():
 
 
 def test_xml_analytic_sphere_and_cylinder():
-    from mitsuba_tpu.io.xml import load_scene_string
+    from mitsuba_jax.io.xml import load_scene_string
 
     xml = """<scene>
       <camera type="perspective">

@@ -4,10 +4,10 @@ import io
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.core.track import AnimatedTransform
-from mitsuba_tpu.utils.checkpoint import FilmCheckpoint, load_pytree, save_pytree
-from mitsuba_tpu.utils.logging import (
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.core.track import AnimatedTransform
+from mitsuba_jax.utils.checkpoint import FilmCheckpoint, load_pytree, save_pytree
+from mitsuba_jax.utils.logging import (
     LogLevel, Logger, ProgressReporter, Statistics,
 )
 
@@ -60,7 +60,7 @@ def test_animated_transform_interpolation():
 
 
 def test_pytree_checkpoint_roundtrip(tmp_path):
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.render.scene import cornell_box
 
     scene = cornell_box(8, 8)
     p = str(tmp_path / "scene.ckpt")
@@ -90,9 +90,9 @@ def test_film_checkpoint(tmp_path):
 
 
 def test_progressive_preview_accumulates():
-    from mitsuba_tpu.integrators import PathConfig, render
-    from mitsuba_tpu.render.preview import progressive_render
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.integrators import PathConfig, render
+    from mitsuba_jax.render.preview import progressive_render
+    from mitsuba_jax.render.scene import cornell_box
 
     scene = cornell_box(12, 12)
     cfg = PathConfig(max_depth=2, spp=2, remat=False)
@@ -112,8 +112,8 @@ def test_progressive_preview_accumulates():
 
 
 def test_strict_normals_runs():
-    from mitsuba_tpu.integrators import PathConfig, render
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.integrators import PathConfig, render
+    from mitsuba_jax.render.scene import cornell_box
 
     scene = cornell_box(10, 10)
     img, _ = render(scene, PathConfig(max_depth=3, spp=2, remat=False,
@@ -131,7 +131,7 @@ def test_checked_catches_nan():
     import jax.numpy as jnp
     import pytest
 
-    from mitsuba_tpu.utils.debug import checked
+    from mitsuba_jax.utils.debug import checked
 
     def bad(x):
         return jnp.log(x) / jnp.sqrt(x - 2.0)   # NaN for x in (0, 2)
@@ -146,7 +146,7 @@ def test_assert_finite_reports_leaf_and_index():
     import numpy as np
     import pytest
 
-    from mitsuba_tpu.utils.debug import assert_finite, find_nonfinite
+    from mitsuba_jax.utils.debug import assert_finite, find_nonfinite
 
     tree = {"film": np.ones((4, 4)), "grad": np.array([1.0, np.nan, np.inf])}
     bad = find_nonfinite(tree)
@@ -162,9 +162,9 @@ def test_render_output_finite():
     """End-to-end film validation via assert_finite (checkify cannot gate
     full renders: masked multi-eval legitimately computes-then-discards
     NaN lanes — see utils/debug.py docstring)."""
-    from mitsuba_tpu.integrators.path import PathConfig, render
-    from mitsuba_tpu.render.scene import cornell_box
-    from mitsuba_tpu.utils.debug import assert_finite
+    from mitsuba_jax.integrators.path import PathConfig, render
+    from mitsuba_jax.render.scene import cornell_box
+    from mitsuba_jax.utils.debug import assert_finite
 
     scene = cornell_box(width=8, height=8)
     cfg = PathConfig(max_depth=3, spp=2, remat=False)

@@ -3,12 +3,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.integrators.bre import (
+from mitsuba_jax.integrators.bre import (
     bre_render, build_volume_grid, shoot_photons_media,
 )
-from mitsuba_tpu.integrators.path import PathConfig
-from mitsuba_tpu.media import make_homogeneous, no_medium
-from mitsuba_tpu.render.scene import cornell_box
+from mitsuba_jax.integrators.path import PathConfig
+from mitsuba_jax.media import make_homogeneous, no_medium
+from mitsuba_jax.render.scene import cornell_box
 
 
 def test_volume_deposits_scale_with_sigma():
@@ -28,10 +28,10 @@ def test_volume_deposits_scale_with_sigma():
 def test_caustic_classification():
     """All-diffuse cornell: no caustic photons.  With a mirror floor,
     L(S)+D deposits must appear flagged caustic."""
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.camera import make_perspective
-    from mitsuba_tpu.render.scene import SceneBuilder
-    from mitsuba_tpu.core import transform as tf
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.camera import make_perspective
+    from mitsuba_jax.render.scene import SceneBuilder
+    from mitsuba_jax.core import transform as tf
 
     surf, _ = shoot_photons_media(
         cornell_box(width=8, height=8), no_medium(), 4000, 4, seed=0
@@ -62,7 +62,7 @@ def test_caustic_classification():
 def test_bre_vs_volpath():
     """Beam estimate through homogeneous fog agrees with the volumetric
     path tracer on image mean (both unbiased-ish; loose gate)."""
-    from mitsuba_tpu.integrators.volpath import render_volpath
+    from mitsuba_jax.integrators.volpath import render_volpath
 
     scene = cornell_box(width=16, height=16)
     med = make_homogeneous((0.0012,) * 3, (0.0002,) * 3)

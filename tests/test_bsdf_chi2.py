@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.bsdfs import MaterialBuilder, bsdf_eval, bsdf_pdf, bsdf_sample
-from mitsuba_tpu.core import math as m
-from mitsuba_tpu.core import microfacet as mf
-from mitsuba_tpu.core.chi2 import chi2_test
+from mitsuba_jax.bsdfs import MaterialBuilder, bsdf_eval, bsdf_pdf, bsdf_sample
+from mitsuba_jax.core import math as m
+from mitsuba_jax.core import microfacet as mf
+from mitsuba_jax.core.chi2 import chi2_test
 
 
 def make_table(kind, **kw):
@@ -97,7 +97,7 @@ def test_difftrans_chi2():
 
 def test_energy_conservation_white_furnace():
     """∫ fCos dω <= 1 for reflectance 1 (Monte Carlo over cosine samples)."""
-    from mitsuba_tpu.core import warp
+    from mitsuba_jax.core import warp
 
     n = 200_000
     key = jax.random.key(11)
@@ -160,7 +160,7 @@ def test_wiscombe_chi2_and_energy():
     t = make_table("wiscombe")
     run_chi2(t, fixed_wi(30.0), seed=21)
     # snow is bright but must not exceed unit albedo: integrate fCos
-    from mitsuba_tpu.core import warp
+    from mitsuba_jax.core import warp
     n = 200_000
     wi = jnp.broadcast_to(fixed_wi(20.0), (n, 3))
     wo = warp.square_to_uniform_hemisphere(jax.random.uniform(jax.random.key(22), (n, 2)))
@@ -229,7 +229,7 @@ def test_irawan_cloth_chi2():
         uv = jnp.broadcast_to(uv_fix, (dd.shape[0], 2))
         return bsdf_pdf(table, mid, wi_b, dd).reshape(sh)
 
-    from mitsuba_tpu.core.chi2 import chi2_test
+    from mitsuba_jax.core.chi2 import chi2_test
     res = chi2_test(jax.random.key(5), sample_fn, pdf_fn, n_samples=300_000)
     assert res.passed, f"chi2={res.chi2:.1f} p={res.p_value:.3e}"
 

@@ -1,20 +1,13 @@
-"""Cluster streaming intersector: build + kernel correctness vs brute force.
+"""Cluster cutting and the cluster backend's ray ordering.
 
-The Pallas kernels run in interpret mode on CPU; equality against the
-all-pairs Moeller-Trumbore oracle (render/intersect.py::_closest_brute)
-is the correctness gate (same role as the reference's kd-tree vs
-brute-force checks in src/tests/test_kd.cpp)."""
+cut_clusters must partition the triangles into contiguous BVH-subtree
+ranges (instancing decodes virtual prim ids through them); the per-bounce
+ray ordering and hit prediction must not change the image."""
 import numpy as np
-import jax
-import jax.numpy as jnp
-import pytest
 
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.bvh import build_bvh
-from mitsuba_tpu.render.clusters import (
-    CLUSTER_K, build_cluster_tables, cut_clusters,
-)
-from mitsuba_tpu.render.records import Ray
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.bvh import build_bvh
+from mitsuba_jax.render.clusters import CLUSTER_K, cut_clusters
 
 
 def _make_geom(n_sub=24):
@@ -29,24 +22,6 @@ def _make_geom(n_sub=24):
     return v0, e1, e2, bvh
 
 
-def _cluster_dict(v0, e1, e2, bvh):
-    ranges = cut_clusters(bvh.first, bvh.count, bvh.skip, v0.shape[0])
-    ct = build_cluster_tables(v0, e1, e2, ranges)
-    return dict(
-        G=jnp.asarray(ct.G), aabb=jnp.asarray(ct.aabb),
-        tri_start=jnp.asarray(ct.tri_start),
-        sc_bmin=jnp.asarray(ct.sc_bmin), sc_bmax=jnp.asarray(ct.sc_bmax),
-    ), ranges
-
-
-def _rand_rays(n, seed=0, scale=3.0):
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-scale, scale, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return jnp.asarray(o), jnp.asarray(d)
-
-
 def test_cut_clusters_cover():
     v0, e1, e2, bvh = _make_geom()
     t = v0.shape[0]
@@ -59,264 +34,13 @@ def test_cut_clusters_cover():
     assert pos == t
 
 
-def test_cluster_closest_matches_brute():
-    from mitsuba_tpu.ops.cluster_pallas import cluster_closest
-    from mitsuba_tpu.render.intersect import _mt_hit
-
-    v0, e1, e2, bvh = _make_geom()
-    cl, _ = _cluster_dict(v0, e1, e2, bvh)
-    n = 512
-    o, d = _rand_rays(n, seed=1)
-    mint = jnp.full(n, 1e-4)
-    maxt = jnp.full(n, 1e9)
-    t, u, v, prim, valid = cluster_closest(cl, o, d, mint, maxt,
-                                           interpret=True)
-
-    tb, ub, vb, hb = _mt_hit(
-        o[:, None], d[:, None], jnp.asarray(v0)[None], jnp.asarray(e1)[None],
-        jnp.asarray(e2)[None], mint[:, None], maxt[:, None])
-    t_masked = jnp.where(hb, tb, jnp.inf)
-    best = jnp.argmin(t_masked, axis=1)
-    rows = jnp.arange(n)
-    t_ref = t_masked[rows, best]
-    valid_ref = jnp.isfinite(t_ref)
-
-    assert np.array_equal(np.asarray(valid), np.asarray(valid_ref))
-    ok = np.asarray(valid_ref)
-    np.testing.assert_allclose(np.asarray(t)[ok], np.asarray(t_ref)[ok],
-                               rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(u)[ok],
-                               np.asarray(ub[rows, best])[ok],
-                               rtol=5e-3, atol=5e-4)
-    np.testing.assert_allclose(np.asarray(v)[ok],
-                               np.asarray(vb[rows, best])[ok],
-                               rtol=5e-3, atol=5e-4)
-    assert np.array_equal(np.asarray(prim)[ok], np.asarray(best)[ok])
-
-
-def test_cluster_any_matches_brute():
-    from mitsuba_tpu.ops.cluster_pallas import cluster_any
-    from mitsuba_tpu.render.intersect import _mt_hit
-
-    v0, e1, e2, bvh = _make_geom()
-    cl, _ = _cluster_dict(v0, e1, e2, bvh)
-    n = 512
-    o, d = _rand_rays(n, seed=2)
-    mint = jnp.full(n, 1e-4)
-    maxt = jnp.full(n, 2.5)
-    occ = cluster_any(cl, o, d, mint, maxt, interpret=True)
-    _, _, _, hb = _mt_hit(
-        o[:, None], d[:, None], jnp.asarray(v0)[None], jnp.asarray(e1)[None],
-        jnp.asarray(e2)[None], mint[:, None], maxt[:, None])
-    occ_ref = jnp.any(hb, axis=1)
-    assert np.array_equal(np.asarray(occ), np.asarray(occ_ref))
-
-
-def test_tile_lists_conservative():
-    """Every supercluster actually hit by some ray must be listed."""
-    from mitsuba_tpu.ops.cluster_pallas import (
-        BM, TILE, build_tile_lists, _pack_rays)
-
-    v0, e1, e2, bvh = _make_geom()
-    cl, _ = _cluster_dict(v0, e1, e2, bvh)
-    n = TILE * 2
-    o, d = _rand_rays(n, seed=3)
-    mint = jnp.full(n, 1e-4)
-    maxt = jnp.full(n, 1e9)
-    (ox, oy, oz, dx, dy, dz, mn, mx, _, m) = _pack_rays(o, d, mint, maxt)
-    n_tiles = int(m) // BM
-    ids, counts = build_tile_lists(
-        jnp.stack([p.reshape(-1) for p in (ox, oy, oz)], -1),
-        jnp.stack([p.reshape(-1) for p in (dx, dy, dz)], -1),
-        mx.reshape(-1), cl["sc_bmin"], cl["sc_bmax"], n_tiles)
-    ids = np.asarray(ids)
-    counts = np.asarray(counts)
-    # reference: exact per-ray slab hit vs each supercluster box
-    on = np.asarray(o).reshape(n_tiles, TILE, 3)
-    dn = np.asarray(d).reshape(n_tiles, TILE, 3)
-    bmin = np.asarray(cl["sc_bmin"])
-    bmax = np.asarray(cl["sc_bmax"])
-    inv = 1.0 / np.where(np.abs(dn) < 1e-12, 1e-12, dn)
-    for ti in range(n_tiles):
-        listed = set(ids[ti, :counts[ti]].tolist())
-        t0 = (bmin[None, :, :] - on[ti][:, None]) * inv[ti][:, None]
-        t1 = (bmax[None, :, :] - on[ti][:, None]) * inv[ti][:, None]
-        tn = np.minimum(t0, t1).max(-1)
-        tf = np.maximum(t0, t1).min(-1)
-        really_hit = set(np.nonzero((tn <= tf) & (tf > 0))[1].tolist())
-        assert really_hit <= listed
-
-
-def _wl_dict(v0, e1, e2, bvh, k=32):
-    from mitsuba_tpu.render.clusters import build_mt_tables
-
-    ranges = cut_clusters(bvh.first, bvh.count, bvh.skip, v0.shape[0],
-                          max_k=k)
-    mt = build_mt_tables(v0, e1, e2, ranges, k=k)
-    return dict(tri=jnp.asarray(mt.tri), tri_start=jnp.asarray(mt.tri_start),
-                bmin=jnp.asarray(mt.bmin), bmax=jnp.asarray(mt.bmax),
-                sc_bmin=jnp.asarray(mt.sc_bmin),
-                sc_bmax=jnp.asarray(mt.sc_bmax))
-
-
-def test_worklist_closest_matches_brute():
-    """v2 work-list kernel (the production cluster backend on TPU) in
-    interpret mode vs the all-pairs oracle, restricted to non-overflow
-    rows (overflow rows re-resolve through the XLA walk in production,
-    intersect.py)."""
-    from mitsuba_tpu.ops.worklist_pallas import wl_closest
-    from mitsuba_tpu.render.intersect import _mt_hit
-
-    v0, e1, e2, bvh = _make_geom(12)
-    wl = _wl_dict(v0, e1, e2, bvh)
-    n = 256
-    o, d = _rand_rays(n, seed=3)
-    mint = jnp.full(n, 1e-4)
-    maxt = jnp.full(n, 1e9)
-    t, u, v, prim, valid, ovf = wl_closest(wl, o, d, mint, maxt,
-                                           interpret=True)
-    keep = ~np.repeat(np.asarray(ovf), 128)[:n]
-
-    tb, ub, vb, hb = _mt_hit(
-        o[:, None], d[:, None], jnp.asarray(v0)[None],
-        jnp.asarray(e1)[None], jnp.asarray(e2)[None],
-        mint[:, None], maxt[:, None])
-    t_masked = jnp.where(hb, tb, jnp.inf)
-    t_ref = jnp.min(t_masked, axis=1)
-    valid_ref = jnp.isfinite(t_ref)
-
-    assert keep.mean() > 0.3   # the test is vacuous if everything overflows
-    assert np.array_equal(np.asarray(valid)[keep], np.asarray(valid_ref)[keep])
-    ok = keep & np.asarray(valid_ref)
-    np.testing.assert_allclose(np.asarray(t)[ok], np.asarray(t_ref)[ok],
-                               rtol=3e-4, atol=3e-5)
-
-
-def test_worklist_any_matches_brute():
-    from mitsuba_tpu.ops.worklist_pallas import wl_any
-    from mitsuba_tpu.render.intersect import _mt_hit
-
-    v0, e1, e2, bvh = _make_geom(12)
-    wl = _wl_dict(v0, e1, e2, bvh)
-    n = 256
-    o, d = _rand_rays(n, seed=5)
-    mint = jnp.full(n, 1e-4)
-    maxt = jnp.full(n, 2.5)
-    occ, ovf = wl_any(wl, o, d, mint, maxt, interpret=True)
-    keep = ~np.repeat(np.asarray(ovf), 128)[:n]
-
-    tb, ub, vb, hb = _mt_hit(
-        o[:, None], d[:, None], jnp.asarray(v0)[None],
-        jnp.asarray(e1)[None], jnp.asarray(e2)[None],
-        mint[:, None], maxt[:, None])
-    occ_ref = np.asarray(jnp.any(hb, axis=1))
-    # occ=True is definitive even in overflow rows; occ=False only on
-    # non-overflow rows
-    assert (np.asarray(occ) & ~occ_ref).sum() == 0
-    assert np.array_equal(np.asarray(occ)[keep], occ_ref[keep])
-
-
-def test_instanced_worklist_matches_flattened():
-    """TRUE instancing (reference instance.cpp nests kd-trees; here
-    instances share one object-space block table + per-cluster world
-    boxes/transforms): closest hits must match intersecting the
-    explicitly flattened copies."""
-    from mitsuba_tpu.ops.worklist_pallas import wl_any, wl_closest
-    from mitsuba_tpu.render.clusters import (
-        build_instanced_tables, build_mt_tables,
-    )
-    from mitsuba_tpu.render.intersect import _mt_hit
-
-    # static floor + a small sphere group instanced twice
-    floor = mesh_mod.make_quad([-4, -4, 0], [4, -4, 0], [4, 4, 0],
-                               [-4, 4, 0])
-    fv = np.asarray(floor.vertices, np.float32)
-    ff = np.asarray(floor.faces, np.int64)
-    sbvh = build_bvh(fv, ff)
-    ftri = fv[ff[sbvh.perm]]
-    static_mt = build_mt_tables(
-        ftri[:, 0], ftri[:, 1] - ftri[:, 0], ftri[:, 2] - ftri[:, 0],
-        cut_clusters(sbvh.first, sbvh.count, sbvh.skip, ff.shape[0]))
-
-    g = mesh_mod.make_sphere_mesh([0, 0, 0], 1.0, 8, 16)
-    gv = np.asarray(g.vertices, np.float32)
-    gf = np.asarray(g.faces, np.int64)
-    gbvh = build_bvh(gv, gf)
-    gtri = gv[gf[gbvh.perm]]
-    gmt = build_mt_tables(
-        gtri[:, 0], gtri[:, 1] - gtri[:, 0], gtri[:, 2] - gtri[:, 0],
-        cut_clusters(gbvh.first, gbvh.count, gbvh.skip, gf.shape[0]))
-
-    def xlate_scale(t, s):
-        m = np.eye(4)
-        m[:3, 3] = t
-        m[0, 0] = m[1, 1] = m[2, 2] = s
-        return m
-
-    insts = [(0, xlate_scale([-1.5, 0, 1.2], 1.0)),
-             (0, xlate_scale([1.5, 0, 1.5], 0.6))]
-    it = build_instanced_tables(static_mt, ff.shape[0], [gmt], insts)
-    geom_cl = dict(
-        tri=jnp.asarray(it.tri), tri_start=jnp.asarray(it.tri_start),
-        bmin=jnp.asarray(it.bmin), bmax=jnp.asarray(it.bmax),
-        sc_bmin=jnp.asarray(it.sc_bmin), sc_bmax=jnp.asarray(it.sc_bmax),
-        block_id=jnp.asarray(it.block_id), xform=jnp.asarray(it.xform))
-
-    # reference: flattened world-space soup, brute all-pairs
-    world = [ftri]
-    for gi, m4 in insts:
-        world.append(gtri @ m4[:3, :3].T + m4[:3, 3])
-    wtri = np.concatenate(world).astype(np.float32)
-    v0 = jnp.asarray(wtri[:, 0])
-    e1 = jnp.asarray(wtri[:, 1] - wtri[:, 0])
-    e2 = jnp.asarray(wtri[:, 2] - wtri[:, 0])
-
-    n = 256
-    o, d = _rand_rays(n, seed=11, scale=4.0)
-    mint = jnp.full(n, 1e-4)
-    maxt = jnp.full(n, 1e9)
-    t, u, v, prim, valid, ovf = wl_closest(geom_cl, o, d, mint, maxt,
-                                           interpret=True)
-    keep = ~np.repeat(np.asarray(ovf), 128)[:n]
-
-    tb, ub, vb, hb = _mt_hit(o[:, None], d[:, None], v0[None], e1[None],
-                             e2[None], mint[:, None], maxt[:, None])
-    t_ref = jnp.min(jnp.where(hb, tb, jnp.inf), axis=1)
-    ok_ref = np.asarray(jnp.isfinite(t_ref))
-    assert keep.mean() > 0.3
-    assert np.array_equal(np.asarray(valid)[keep], ok_ref[keep])
-    sel = keep & ok_ref
-    np.testing.assert_allclose(np.asarray(t)[sel], np.asarray(t_ref)[sel],
-                               rtol=5e-4, atol=5e-5)
-    # virtual prim decode: instanced hits land in [T_static, ...)
-    pr = np.asarray(prim)[sel]
-    assert (pr >= ff.shape[0]).sum() > 0      # spheres actually hit
-    # a ray down through instance 0's sphere (slightly off the pole
-    # vertex — a ray exactly through a shared vertex can miss in fp)
-    o1 = jnp.asarray(np.tile([[-1.45, 0.1, 5.4]], (n, 1)), jnp.float32)
-    d1 = jnp.asarray(np.tile([[0.0, 0.0, -1.0]], (n, 1)), jnp.float32)
-    t1, _, _, p1, ok1, ovf1 = wl_closest(geom_cl, o1, d1, mint, maxt,
-                                         interpret=True)
-    assert bool(ok1[0]) and not bool(ovf1[0])
-    # hit height ~ 1.2 + sqrt(1 - 0.05^2 - 0.1^2) (tessellated: loose tol)
-    np.testing.assert_allclose(float(t1[0]), 5.4 - 2.194, atol=0.05)
-    assert int(p1[0]) >= ff.shape[0]
-    # any-hit agrees on occlusion
-    occ, ovf2 = wl_any(geom_cl, o, d, mint, jnp.full(n, 3.0),
-                       interpret=True)
-    occ_ref = np.asarray(jnp.any(hb & (tb <= 3.0), axis=1))
-    keep2 = ~np.repeat(np.asarray(ovf2), 128)[:n]
-    assert (np.asarray(occ) & ~occ_ref).sum() == 0
-    assert np.array_equal(np.asarray(occ)[keep2], occ_ref[keep2])
-
-
 def test_octant_sort_mode_matches_full(cluster_scene=None):
     """'octant' linear counting-sort ordering must not change radiance
     (ordering is a perf knob; every lane resolves exactly either way)."""
     import numpy as np
 
-    from mitsuba_tpu.integrators import PathConfig, render
-    from mitsuba_tpu.render.scene import cornell_box_specular
+    from mitsuba_jax.integrators import PathConfig, render
+    from mitsuba_jax.render.scene import cornell_box_specular
 
     # force cluster: the analytic-sphere specular box is otherwise small
     # enough that "auto" picks brute, and this test targets cluster sorting
@@ -333,8 +57,8 @@ def test_hit_prediction_identical_render():
 
     import numpy as np
 
-    from mitsuba_tpu.integrators import PathConfig, render
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.integrators import PathConfig, render
+    from mitsuba_jax.render.scene import cornell_box
 
     scene = cornell_box(24, 24, backend="brute")
     base = PathConfig(max_depth=4, spp=2)

@@ -3,9 +3,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mitsuba_tpu.core.types import replace
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.render.scene import cornell_box_specular, textured_mesh_scene
+from mitsuba_jax.core.types import replace
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.render.scene import cornell_box_specular, textured_mesh_scene
 
 
 def test_config2_specular_cornell():
@@ -36,7 +36,7 @@ def test_config3_textured_mesh_envmap():
 def test_config4_inverse_rendering_recovers_albedo():
     """Differentiable inverse rendering: recover a wall albedo by gradient
     descent on an MSE loss against a target render."""
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.render.scene import cornell_box
 
     scene = cornell_box(16, 16)
     cfg = PathConfig(max_depth=3, spp=8, remat=True)

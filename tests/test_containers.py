@@ -2,8 +2,8 @@
 core/lrucache.h)."""
 import numpy as np
 
-from mitsuba_tpu.core.lru import LRUCache
-from mitsuba_tpu.core.octree import Octree
+from mitsuba_jax.core.lru import LRUCache
+from mitsuba_jax.core.octree import Octree
 
 
 def _cloud(n=600, seed=0):
@@ -86,7 +86,7 @@ def test_lru_read_through_loader():
 
 
 def test_image_cache_decodes_once(tmp_path):
-    from mitsuba_tpu.io import bitmap
+    from mitsuba_jax.io import bitmap
 
     img = np.random.default_rng(6).integers(0, 255, (4, 4, 3),
                                             dtype=np.uint8)
@@ -104,13 +104,13 @@ def test_hierarchical_sss_gather_matches_scan():
     exact at eps=0."""
     import jax.numpy as jnp
 
-    from mitsuba_tpu.subsurface.dipole import (
+    from mitsuba_jax.subsurface.dipole import (
         SceneSubsurface, build_scene_subsurface, scene_ss_lo,
         scene_ss_lo_hier,
     )
 
-    from mitsuba_tpu.render.intersect import build_geometry
-    from mitsuba_tpu.render.mesh import make_quad
+    from mitsuba_jax.render.intersect import build_geometry
+    from mitsuba_jax.render.mesh import make_quad
 
     rng = np.random.default_rng(11)
     K = 512
@@ -121,7 +121,7 @@ def test_hierarchical_sss_gather_matches_scan():
     ss = build_scene_subsurface(entries, n_materials=1, geom=geom,
                                 n_points=K)
     irr = rng.uniform(0.2, 1.0, (1, K, 3)).astype(np.float32)
-    from mitsuba_tpu.core.types import replace
+    from mitsuba_jax.core.types import replace
     ss = replace(ss, irradiance=jnp.asarray(irr))
 
     x = rng.uniform(-0.5, 0.5, (16, 3)).astype(np.float32)

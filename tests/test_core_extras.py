@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core import math as m
-from mitsuba_tpu.core import sh
-from mitsuba_tpu.core.brent import brent
-from mitsuba_tpu.core.kdtree import HashGrid, KDTree
-from mitsuba_tpu.core.sfcurve import hilbert_d2xy, hilbert_pixel_order, hilbert_xy2d
-from mitsuba_tpu.core.wavelet import (
+from mitsuba_jax.core import math as m
+from mitsuba_jax.core import sh
+from mitsuba_jax.core.brent import brent
+from mitsuba_jax.core.kdtree import HashGrid, KDTree
+from mitsuba_jax.core.sfcurve import hilbert_d2xy, hilbert_pixel_order, hilbert_xy2d
+from mitsuba_jax.core.wavelet import (
     haar_fwd_2d, haar_fwd_3d, haar_inv_2d, haar_inv_3d, sparsify,
 )
 
@@ -60,7 +60,7 @@ def test_sh_rotate_z():
 
 
 def test_sh_sampler_chi2():
-    from mitsuba_tpu.core.chi2 import chi2_test
+    from mitsuba_jax.core.chi2 import chi2_test
 
     bands = 3
     # a positive function: constant + gentle y_1^0 tilt
@@ -161,7 +161,7 @@ def test_hashgrid_gather_matches_bruteforce():
 # ---------------------------------------------------------------------------
 
 def test_perlin_range_and_zero_mean():
-    from mitsuba_tpu.core.noise import perlin_noise
+    from mitsuba_jax.core.noise import perlin_noise
 
     rng = np.random.default_rng(0)
     p = jnp.asarray(rng.uniform(-50, 50, size=(20000, 3)), jnp.float32)
@@ -174,7 +174,7 @@ def test_perlin_range_and_zero_mean():
 
 def test_perlin_zero_at_lattice():
     """Gradient noise vanishes exactly at integer lattice points."""
-    from mitsuba_tpu.core.noise import perlin_noise
+    from mitsuba_jax.core.noise import perlin_noise
 
     p = jnp.asarray([[0, 0, 0], [1, 2, 3], [-4, 7, 11]], jnp.float32)
     np.testing.assert_allclose(np.asarray(perlin_noise(p)), 0.0, atol=1e-6)
@@ -182,7 +182,7 @@ def test_perlin_zero_at_lattice():
 
 def test_perlin_smooth():
     """Small input perturbations produce small output changes."""
-    from mitsuba_tpu.core.noise import perlin_noise
+    from mitsuba_jax.core.noise import perlin_noise
 
     p = jnp.asarray([[0.3, 0.7, 0.1]], jnp.float32)
     a = float(perlin_noise(p)[0])
@@ -191,7 +191,7 @@ def test_perlin_smooth():
 
 
 def test_fbm_and_turbulence():
-    from mitsuba_tpu.core.noise import fbm, turbulence
+    from mitsuba_jax.core.noise import fbm, turbulence
 
     rng = np.random.default_rng(1)
     p = jnp.asarray(rng.uniform(-10, 10, size=(1000, 3)), jnp.float32)
@@ -209,7 +209,7 @@ def test_sh4d_roundtrip():
     looking it up reproduces the function (reference shvector4d.h)."""
     import jax.numpy as jnp
 
-    from mitsuba_tpu.core.sh import eval_sh_4d, project_4d
+    from mitsuba_jax.core.sh import eval_sh_4d, project_4d
 
     g = 0.4
 

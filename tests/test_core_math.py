@@ -3,11 +3,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core import math as m
-from mitsuba_tpu.core import fresnel as fr
-from mitsuba_tpu.core import spectrum as spec
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.core.pdf import DiscretePDF
+from mitsuba_jax.core import math as m
+from mitsuba_jax.core import fresnel as fr
+from mitsuba_jax.core import spectrum as spec
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.core.pdf import DiscretePDF
 
 
 def test_coordinate_system_orthonormal():

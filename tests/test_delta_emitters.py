@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core import math as m
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.integrators import PathConfig, path_trace
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.camera import make_perspective
-from mitsuba_tpu.render.records import Ray
-from mitsuba_tpu.render.sampler import Sampler
-from mitsuba_tpu.render.scene import SceneBuilder
+from mitsuba_jax.core import math as m
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.integrators import PathConfig, path_trace
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.camera import make_perspective
+from mitsuba_jax.render.records import Ray
+from mitsuba_jax.render.sampler import Sampler
+from mitsuba_jax.render.scene import SceneBuilder
 
 
 def floor_scene(add_emitter, albedo=0.8):

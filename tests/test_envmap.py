@@ -3,19 +3,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core import math as m
-from mitsuba_tpu.core.chi2 import chi2_test
-from mitsuba_tpu.emitters.envmap import (
+from mitsuba_jax.core import math as m
+from mitsuba_jax.core.chi2 import chi2_test
+from mitsuba_jax.emitters.envmap import (
     build_env_cdfs, env_eval, env_pdf, env_sample, latlong_dir_to_uv,
     latlong_uv_to_dir, preetham_sky,
 )
-from mitsuba_tpu.integrators import PathConfig, path_trace
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.records import Ray
-from mitsuba_tpu.render.sampler import Sampler
-from mitsuba_tpu.render.scene import SceneBuilder
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.render.camera import make_perspective
+from mitsuba_jax.integrators import PathConfig, path_trace
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.records import Ray
+from mitsuba_jax.render.sampler import Sampler
+from mitsuba_jax.render.scene import SceneBuilder
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.render.camera import make_perspective
 
 
 def random_env(seed, h=16, w=32):
@@ -52,7 +52,7 @@ def test_env_sampling_chi2():
 
 
 def test_env_pdf_integrates_to_one():
-    from mitsuba_tpu.core.quad import sphere_bin_integrate
+    from mitsuba_jax.core.quad import sphere_bin_integrate
 
     img = random_env(3)
     _, _, pdf_img = build_env_cdfs(img)

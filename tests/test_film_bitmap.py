@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mitsuba_tpu.io import bitmap
-from mitsuba_tpu.render import rfilter as rf
-from mitsuba_tpu.render.film import develop, develop_with_variance
+from mitsuba_jax.io import bitmap
+from mitsuba_jax.render import rfilter as rf
+from mitsuba_jax.render.film import develop, develop_with_variance
 
 
 def test_filters_normalized_on_constant_field():

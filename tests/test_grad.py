@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core.types import replace
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.render.scene import cornell_box
+from mitsuba_jax.core.types import replace
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.render.scene import cornell_box
 
 
 def _loss(scene, refl, cfg, seed=0):
@@ -64,7 +64,7 @@ def test_grad_emitter_radiance():
 
 
 def _media_mean(scene, field, value, cfg, seed):
-    from mitsuba_tpu.integrators.volpath import render_volpath_media
+    from mitsuba_jax.integrators.volpath import render_volpath_media
 
     sc = replace(scene, media=replace(scene.media,
                                       **{field: jnp.full((1, 3), value)}))
@@ -102,10 +102,10 @@ def test_grad_matches_fd_texture_bitmap():
     flagship differentiable-rendering use; texture eval is bilinear ->
     piecewise-linear in texel values, so seed-matched central
     differences are exact up to float precision)."""
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.core import transform as tf
-    from mitsuba_tpu.render.camera import make_perspective
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.core import transform as tf
+    from mitsuba_jax.render.camera import make_perspective
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder()
     img0 = jnp.asarray(np.random.default_rng(3).uniform(

@@ -15,10 +15,10 @@ def _get(port, path):
 
 
 def test_gui_preview_end_to_end():
-    from mitsuba_tpu.gui import serve
-    from mitsuba_tpu.integrators import PathConfig
-    from mitsuba_tpu.io.bitmap import read_png
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.gui import serve
+    from mitsuba_jax.integrators import PathConfig
+    from mitsuba_jax.io.bitmap import read_png
+    from mitsuba_jax.render.scene import cornell_box
 
     scene = cornell_box(24, 24, backend="brute")
     cfg = PathConfig(max_depth=2, spp=2, remat=False)

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core.chi2 import chi2_test
-from mitsuba_tpu.integrators.guiding import (
+from mitsuba_jax.core.chi2 import chi2_test
+from mitsuba_jax.integrators.guiding import (
     N_BINS, guide_pdf, guide_sample, guide_update, make_guide,
 )
 
@@ -35,7 +35,7 @@ def test_guide_sample_pdf_chi2():
     plus exact sample↔pdf agreement at the sampled directions."""
     from scipy.stats import chi2 as chi2_dist
 
-    from mitsuba_tpu.integrators.guiding import _bin_of, _cell_of
+    from mitsuba_jax.integrators.guiding import _bin_of, _cell_of
 
     g, p0 = _learned_guide()
     p0 = jnp.asarray(p0)
@@ -63,7 +63,7 @@ def test_guide_sample_pdf_chi2():
 def test_guide_pdf_normalized():
     g, p0 = _learned_guide()
     # sum over bin centers × solid angle = 1
-    from mitsuba_tpu.core.quad import sphere_bin_integrate
+    from mitsuba_jax.core.quad import sphere_bin_integrate
 
     total = float(sphere_bin_integrate(
         lambda d: guide_pdf(g, jnp.broadcast_to(jnp.asarray(p0), d.shape),
@@ -85,9 +85,9 @@ def test_guided_render_unbiased_and_lower_variance():
     """Cornell with guiding: means agree with the unguided render
     (Welch t-test per channel on the image mean) and the guided second
     half shows lower pixel variance on the indirectly-lit ceiling."""
-    from mitsuba_tpu.integrators import PathConfig
-    from mitsuba_tpu.integrators.path import render_guided
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.integrators import PathConfig
+    from mitsuba_jax.integrators.path import render_guided
+    from mitsuba_jax.render.scene import cornell_box
 
     scene = cornell_box(24, 24, backend="brute")
     cfg = PathConfig(max_depth=4, spp=8, remat=False)
@@ -99,7 +99,7 @@ def test_guided_render_unbiased_and_lower_variance():
             means.append(img.mean())
         return np.asarray(means)
 
-    from mitsuba_tpu.integrators.path import render
+    from mitsuba_jax.integrators.path import render
 
     m_ref = stats(lambda s: render(scene, cfg, seed=s)[0], range(6))
     m_gui = stats(lambda s: render_guided(scene, cfg, seed=s)[0], range(6))
@@ -113,9 +113,9 @@ def test_guided_render_reduces_variance():
     """Equal-spp seed-to-seed pixel variance must drop under guiding
     (measured 0.65x on the cornell box, 0.53x on the specular variant —
     gate at a loose 0.9x to stay robust to seed noise)."""
-    from mitsuba_tpu.integrators import PathConfig
-    from mitsuba_tpu.integrators.path import render, render_guided
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.integrators import PathConfig
+    from mitsuba_jax.integrators.path import render, render_guided
+    from mitsuba_jax.render.scene import cornell_box
 
     # 32x32 x 8spp: enough learning deposits for a 16^3 guide — at
     # smaller wavefronts the sparse/noisy guide can hurt (measured 1.1x
@@ -135,9 +135,9 @@ def test_progressive_guided_matches_unguided():
     """progressive_render(guided=True): learn-while-sampling passes stay
     unbiased — accumulated image t-test-equal to the plain progressive
     render."""
-    from mitsuba_tpu.integrators import PathConfig
-    from mitsuba_tpu.render.preview import progressive_render
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.integrators import PathConfig
+    from mitsuba_jax.render.preview import progressive_render
+    from mitsuba_jax.render.scene import cornell_box
 
     scene = cornell_box(20, 20, backend="brute")
     cfg = PathConfig(max_depth=4, spp=4, remat=False)
@@ -154,12 +154,12 @@ def test_volpath_guided_unbiased():
     t-test-equal to the unguided volpath."""
     from scipy.stats import ttest_ind
 
-    from mitsuba_tpu.integrators import PathConfig
-    from mitsuba_tpu.integrators.volpath import (
+    from mitsuba_jax.integrators import PathConfig
+    from mitsuba_jax.integrators.volpath import (
         render_volpath, render_volpath_guided,
     )
-    from mitsuba_tpu.media import make_homogeneous
-    from mitsuba_tpu.render.scene import cornell_box
+    from mitsuba_jax.media import make_homogeneous
+    from mitsuba_jax.render.scene import cornell_box
 
     # cornell is ~550 units across: keep optical depth ~1 over the box
     scene = cornell_box(20, 20, backend="brute")

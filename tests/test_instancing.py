@@ -2,17 +2,16 @@
 shapegroup.cpp — kd-tree-in-kd-tree; here instances share one object-space
 cluster/triangle table, per-instance world boxes + transforms).
 
-The CPU path exercises the exact per-instance walks
-(render/intersect.py _instances_closest/_instances_any); the work-list
-kernel path is covered by tests/test_cluster.py in interpret mode."""
+Every platform runs the exact per-instance walks
+(render/intersect.py _instances_closest/_instances_any)."""
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.camera import make_perspective
-from mitsuba_tpu.render.scene import SceneBuilder
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.camera import make_perspective
+from mitsuba_jax.render.scene import SceneBuilder
 
 
 def _xform(t, s=1.0):
@@ -65,7 +64,7 @@ def test_instanced_matches_flattened_render():
     si = _instanced_scene()
     sf = _flattened_scene()
     # the instanced scene stores ONE copy of the ball's triangles
-    assert si.geom.mt_tri.shape[0] < sf.geom.mt_tri.shape[0]
+    assert si.geom.n_tris + si.geom.inst_groups[0].n_tris < sf.geom.n_tris
     img_i, _ = render(si, cfg, seed=3)
     img_f, _ = render(sf, cfg, seed=3)
     img_i, img_f = np.asarray(img_i), np.asarray(img_f)

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core import math as m
-from mitsuba_tpu.core.types import replace
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.bvh import build_bvh
-from mitsuba_tpu.render.intersect import build_geometry, ray_intersect, ray_test
-from mitsuba_tpu.render.records import Ray
+from mitsuba_jax.core import math as m
+from mitsuba_jax.core.types import replace
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.bvh import build_bvh
+from mitsuba_jax.render.intersect import build_geometry, ray_intersect, ray_test
+from mitsuba_jax.render.records import Ray
 
 
 def random_mesh(seed, n_tri=200, spread=2.0):
@@ -123,41 +123,3 @@ def test_empty_direction_misses():
     its = ray_intersect(geom, ray)
     assert not bool(its.valid[0])
     assert int(its.material_id[0]) == -1
-
-
-def test_phased_walk_matches_unrolled():
-    """The TPU-safe single-gather-per-iteration walk (_walk_phased) must
-    agree exactly with the unrolled oracle (see _closest_bvh_unrolled's
-    note on why TPU callers need the phased body)."""
-    import numpy as np
-
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.intersect import (
-        _any_bvh_unrolled, _closest_bvh_unrolled, _walk_phased,
-        build_geometry,
-    )
-    from mitsuba_tpu.render.records import Ray
-
-    meshes = [(mesh_mod.make_sphere_mesh([0, 0, 0], 1.0, 10, 20), 0, -1),
-              (mesh_mod.make_quad([-3, -3, -2], [3, -3, -2], [3, 3, -2],
-                                  [-3, 3, -2]), 0, -1)]
-    geom = build_geometry(meshes, backend="bvh")
-    rng = np.random.default_rng(5)
-    n = 512
-    o = jnp.asarray(rng.uniform(-3, 3, (n, 3)), jnp.float32)
-    d = rng.normal(size=(n, 3))
-    d = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True),
-                    jnp.float32)
-    ray = Ray.make(o, d, mint=jnp.full(n, 1e-4))
-    t0, u0, v0, p0, ok0 = _closest_bvh_unrolled(geom, ray)
-    t1, u1, v1, p1, ok1 = _walk_phased(geom, ray, any_hit=False)
-    assert np.array_equal(np.asarray(ok0), np.asarray(ok1))
-    sel = np.asarray(ok0)
-    np.testing.assert_allclose(np.asarray(t0)[sel], np.asarray(t1)[sel],
-                               rtol=1e-6)
-    assert np.array_equal(np.asarray(p0)[sel], np.asarray(p1)[sel])
-    # any-hit with a short maxt
-    ray2 = Ray.make(o, d, mint=jnp.full(n, 1e-4), maxt=jnp.full(n, 2.0))
-    occ0 = _any_bvh_unrolled(geom, ray2)
-    _, _, _, _, occ1 = _walk_phased(geom, ray2, any_hit=True)
-    assert np.array_equal(np.asarray(occ0), np.asarray(occ1))

@@ -1,9 +1,9 @@
 """Irradiance caching: coverage + agreement with path tracing."""
 import numpy as np
 
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.integrators.irrcache import irrcache_render
-from mitsuba_tpu.render.scene import cornell_box
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.integrators.irrcache import irrcache_render
+from mitsuba_jax.render.scene import cornell_box
 
 
 def test_irrcache_matches_path_tracer():
@@ -31,7 +31,7 @@ def test_gradient_extrapolation_improves_interpolation():
     irradiance at off-record query points."""
     import jax.numpy as jnp
 
-    from mitsuba_tpu.integrators.irrcache import (
+    from mitsuba_jax.integrators.irrcache import (
         build_irradiance_cache, interpolate_irradiance,
     )
 
@@ -70,7 +70,7 @@ def test_ward_gradients_match_analytic_rectangle_light():
     unoccluded rectangle light: translational <5%, rotational <10%."""
     import jax.numpy as jnp
 
-    from mitsuba_tpu.integrators.irrcache import (
+    from mitsuba_jax.integrators.irrcache import (
         stratified_hemisphere, ward_gradients,
     )
 

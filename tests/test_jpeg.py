@@ -3,7 +3,7 @@ parity in both directions)."""
 import numpy as np
 import pytest
 
-from mitsuba_tpu.io.jpeg import read_jpeg, write_jpeg
+from mitsuba_jax.io.jpeg import read_jpeg, write_jpeg
 
 PIL = pytest.importorskip("PIL.Image")
 
@@ -56,7 +56,7 @@ def test_encode_decodable_by_libjpeg(tmp_path):
 
 
 def test_dispatch_via_read_write_image(tmp_path):
-    from mitsuba_tpu.io.bitmap import read_image, write_image
+    from mitsuba_jax.io.bitmap import read_image, write_image
 
     img = _test_image()
     p = str(tmp_path / "d.jpg")

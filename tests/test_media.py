@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core import math as m
-from mitsuba_tpu.core.chi2 import chi2_test
-from mitsuba_tpu.integrators import PathConfig
-from mitsuba_tpu.integrators.volpath import render_volpath, volpath_trace
-from mitsuba_tpu.media import (
+from mitsuba_jax.core import math as m
+from mitsuba_jax.core.chi2 import chi2_test
+from mitsuba_jax.integrators import PathConfig
+from mitsuba_jax.integrators.volpath import render_volpath, volpath_trace
+from mitsuba_jax.media import (
     HG,
     ISOTROPIC,
     MICROFLAKE,
@@ -21,8 +21,8 @@ from mitsuba_tpu.media import (
     phase_sample,
     sample_distance,
 )
-from mitsuba_tpu.render.records import Ray
-from mitsuba_tpu.render.sampler import Sampler
+from mitsuba_jax.render.records import Ray
+from mitsuba_jax.render.sampler import Sampler
 from tests.test_render_e2e import furnace_scene
 
 
@@ -47,7 +47,7 @@ def test_phase_chi2(kind, g):
 
 
 def test_phase_normalization():
-    from mitsuba_tpu.core.quad import sphere_bin_integrate
+    from mitsuba_jax.core.quad import sphere_bin_integrate
 
     wi_dir = m.normalize(jnp.asarray([0.1, 0.7, 0.7]))
     for kind, g in [(ISOTROPIC, 0.0), (HG, 0.8), (HG, -0.7), (MICROFLAKE, 0.0)]:
@@ -126,7 +126,7 @@ def test_absorbing_medium_attenuates_emitter():
     # distance from (0,5,0) to sphere radius 10 varies by direction; compare
     # against per-ray analytic attenuation is complex — use mean over
     # directions with MC on the same rays:
-    from mitsuba_tpu.render.intersect import ray_intersect
+    from mitsuba_jax.render.intersect import ray_intersect
 
     its = ray_intersect(scene.geom, ray)
     mask = np.asarray(its.emitter_id) >= 0
@@ -144,7 +144,7 @@ def test_woodcock_matches_homogeneous():
     hom = make_homogeneous((sig_s,) * 3, (sig_a,) * 3)
     # grid covering [-20,20]^3 with density 1
     import numpy as _np
-    from mitsuba_tpu.core import transform as tf
+    from mitsuba_jax.core import transform as tf
 
     w2g = tf.compose(tf.scale([4 / 40, 4 / 40, 4 / 40]), tf.translate([20, 20, 20]))
     het = make_heterogeneous(
@@ -174,7 +174,7 @@ def test_woodcock_matches_homogeneous():
 # ---------------------------------------------------------------------------
 
 def test_gauss_flake_sigma_t_limits():
-    from mitsuba_tpu.media.phase import fit_fiber_sigma_t, gauss_fiber_sigma_t
+    from mitsuba_jax.media.phase import fit_fiber_sigma_t, gauss_fiber_sigma_t
 
     # σ -> 0: flakes exactly perpendicular to the axis -> σ_t = (2/π)sinθ
     c, err = fit_fiber_sigma_t(4e-4)
@@ -191,7 +191,7 @@ def test_gauss_flake_sigma_t_limits():
 
 @pytest.mark.parametrize("stddev", [0.2, 0.8])
 def test_gauss_flake_phase_chi2(stddev):
-    from mitsuba_tpu.media.phase import MICROFLAKE_GAUSS, fit_fiber_sigma_t
+    from mitsuba_jax.media.phase import MICROFLAKE_GAUSS, fit_fiber_sigma_t
 
     coeffs, _ = fit_fiber_sigma_t(stddev)
     coeffs = jnp.asarray(coeffs)
@@ -217,8 +217,8 @@ def test_gauss_flake_phase_chi2(stddev):
 
 
 def test_gauss_flake_normalization():
-    from mitsuba_tpu.core.quad import sphere_bin_integrate
-    from mitsuba_tpu.media.phase import MICROFLAKE_GAUSS, fit_fiber_sigma_t
+    from mitsuba_jax.core.quad import sphere_bin_integrate
+    from mitsuba_jax.media.phase import MICROFLAKE_GAUSS, fit_fiber_sigma_t
 
     wi_dir = m.normalize(jnp.asarray([0.1, 0.7, 0.7]))
     for stddev in (0.15, 0.5, 2.0):
@@ -238,7 +238,7 @@ def test_oriented_medium_directional_extinction():
     """Transmittance through a fiber medium depends on the ray's angle to
     the fiber axis: along the fibers σ_t is small, across it is maximal
     (reference microflake.cpp sigmaDir)."""
-    from mitsuba_tpu.media.medium import (
+    from mitsuba_jax.media.medium import (
         make_heterogeneous, medium_transmittance,
     )
 
@@ -256,7 +256,7 @@ def test_oriented_medium_directional_extinction():
     assert tr_along > tr_across + 0.2, (tr_along, tr_across)
     # quantitative: sigmaDir(cos=0) = 2 σ_t(0) ≈ 2·(2/π)·erf-ish; compare
     # against the fitted expansion directly
-    from mitsuba_tpu.media.phase import gauss_fiber_sigma_t
+    from mitsuba_jax.media.phase import gauss_fiber_sigma_t
 
     f_across = 2.0 * float(gauss_fiber_sigma_t(jnp.asarray(0.0),
                                                med.flake_coeffs))
@@ -269,9 +269,9 @@ def test_oriented_medium_directional_extinction():
 def test_oriented_volpath_renders():
     """volpath end-to-end with a gaussian-flake oriented medium: finite,
     non-black, and Woodcock event rate responds to the fiber angle."""
-    from mitsuba_tpu.integrators.volpath import render_volpath
-    from mitsuba_tpu.media.medium import make_heterogeneous
-    from mitsuba_tpu.integrators import PathConfig
+    from mitsuba_jax.integrators.volpath import render_volpath
+    from mitsuba_jax.media.medium import make_heterogeneous
+    from mitsuba_jax.integrators import PathConfig
 
     scene = furnace_scene(16, 16)
     med = make_heterogeneous(

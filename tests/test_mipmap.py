@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.render.mipmap import (
+from mitsuba_jax.render.mipmap import (
     build_mipmap, eval_aniso, eval_trilinear, lod_from_duv,
 )
 
@@ -80,7 +80,7 @@ def test_aniso_sharper_than_isotropic():
 
 def test_eval_texture_mip_integration():
     """TextureBuilder(build_mips=True) + duv args -> filtered lookups."""
-    from mitsuba_tpu.render.texture import TextureBuilder, eval_texture
+    from mitsuba_jax.render.texture import TextureBuilder, eval_texture
 
     tb = TextureBuilder(build_mips=True)
     tid = tb.bitmap(_checker(64), gamma=1.0)
@@ -104,11 +104,11 @@ def test_path_tracer_ewa_aniso():
     preserving energy."""
     import numpy as np
 
-    from mitsuba_tpu.core import transform as tf
-    from mitsuba_tpu.integrators.path import PathConfig, render
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.camera import make_perspective
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.core import transform as tf
+    from mitsuba_jax.integrators.path import PathConfig, render
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.camera import make_perspective
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder(build_mips=True)
     # stripes varying along v ONLY: v maps to the minor footprint axis on
@@ -157,11 +157,11 @@ def test_path_tracer_ray_cone_mip():
     instead of aliasing; image stays energy-consistent with bilinear."""
     import numpy as np
 
-    from mitsuba_tpu.core import transform as tf
-    from mitsuba_tpu.integrators.path import PathConfig, render
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.camera import make_perspective
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.core import transform as tf
+    from mitsuba_jax.integrators.path import PathConfig, render
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.camera import make_perspective
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder(build_mips=True)
     tid = b.tex_floor = b.textures.bitmap(_checker(128), gamma=1.0,

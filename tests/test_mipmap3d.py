@@ -4,7 +4,7 @@ is the medium-utility capability)."""
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core.mipmap3d import (
+from mitsuba_jax.core.mipmap3d import (
     build_mipmap3d, invert_line_integral, line_integral,
 )
 

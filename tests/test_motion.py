@@ -5,14 +5,14 @@ import tempfile
 
 import numpy as np
 
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.core.track import (
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.core.track import (
     AnimatedTransform, load_animated_transform, save_animated_transform,
 )
-from mitsuba_tpu.integrators.path import PathConfig, render, render_motion
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.camera import make_perspective
-from mitsuba_tpu.render.scene import SceneBuilder
+from mitsuba_jax.integrators.path import PathConfig, render, render_motion
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.camera import make_perspective
+from mitsuba_jax.render.scene import SceneBuilder
 
 
 def _translate(x):

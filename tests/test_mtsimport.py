@@ -4,10 +4,10 @@ import os
 
 import numpy as np
 
-from mitsuba_tpu.io import meshio
-from mitsuba_tpu.io.xml import load_scene
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.utils.mtsimport import convert, load_collada
+from mitsuba_jax.io import meshio
+from mitsuba_jax.io.xml import load_scene
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.utils.mtsimport import convert, load_collada
 
 DAE = """<?xml version="1.0"?>
 <COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema" version="1.4.1">

@@ -4,8 +4,8 @@ import os
 import numpy as np
 import pytest
 
-from mitsuba_tpu.io.bitmap import read_image, write_image, write_mfilm
-from mitsuba_tpu.mtsutil import main
+from mitsuba_jax.io.bitmap import read_image, write_image, write_mfilm
+from mitsuba_jax.mtsutil import main
 
 
 def test_unknown_tool():

@@ -5,8 +5,8 @@ findCosts via kdbench -f)."""
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core import wavelet as w
-from mitsuba_tpu.core.quad import ndintegrate
+from mitsuba_jax.core import wavelet as w
+from mitsuba_jax.core.quad import ndintegrate
 
 
 @pytest.fixture(scope="module")
@@ -108,9 +108,9 @@ def test_ndintegrate_vector_integrand():
 
 
 def test_find_costs_smoke():
-    from mitsuba_tpu.render.intersect import build_geometry
-    from mitsuba_tpu.render.mesh import make_sphere_mesh
-    from mitsuba_tpu.utils.raybench import find_costs
+    from mitsuba_jax.render.intersect import build_geometry
+    from mitsuba_jax.render.mesh import make_sphere_mesh
+    from mitsuba_jax.utils.raybench import find_costs
 
     msh = make_sphere_mesh((0, 0, 0), 1.0, n_theta=12, n_phi=24)
     geom = build_geometry([(msh, 0, -1)], backend="bvh")

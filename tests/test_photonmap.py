@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.integrators.photonmap import (
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.integrators.photonmap import (
     photonmap_render, ppm_render, shoot_photons,
 )
-from mitsuba_tpu.render.scene import cornell_box
+from mitsuba_jax.render.scene import cornell_box
 
 
 def test_photon_shooting_conserves_energy():
@@ -62,7 +62,7 @@ def test_ppm_radius_shrinks_and_converges():
 def test_photonmapper_final_gather_vs_path():
     """Full photon mapping (direct NEE + final gather) cross-validates
     against the path tracer (reference photonmapper.cpp mode)."""
-    from mitsuba_tpu.integrators.photonmap import photonmapper_render
+    from mitsuba_jax.integrators.photonmap import photonmapper_render
 
     scene = cornell_box(width=16, height=16)
     img_pm, aux = photonmapper_render(

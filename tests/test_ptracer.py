@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.integrators.ptracer import ptracer_render
-from mitsuba_tpu.render.scene import cornell_box
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.integrators.ptracer import ptracer_render
+from mitsuba_jax.render.scene import cornell_box
 
 
 def test_ptracer_matches_path_tracer():

@@ -3,8 +3,8 @@ clone independence, stream serialization."""
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core.streams import InstanceManager, MemoryStream
-from mitsuba_tpu.render.sampler import ReplayableSampler
+from mitsuba_jax.core.streams import InstanceManager, MemoryStream
+from mitsuba_jax.render.sampler import ReplayableSampler
 
 
 def _mk(seed=3, n=64, offset=0):

@@ -6,7 +6,7 @@ import struct
 import numpy as np
 import pytest
 
-from mitsuba_tpu.parallel.server import (
+from mitsuba_jax.parallel.server import (
     MAGIC, PROTOCOL_VERSION, RenderClient, RenderServer, serve_pipe,
 )
 
@@ -52,8 +52,8 @@ def test_ping(server):
 def test_render_roundtrip_matches_local(server):
     import os
 
-    from mitsuba_tpu.integrators.path import PathConfig, render
-    from mitsuba_tpu.io.xml import load_scene_string
+    from mitsuba_jax.integrators.path import PathConfig, render
+    from mitsuba_jax.io.xml import load_scene_string
 
     base = os.path.join(os.path.dirname(__file__), "..", "scenes")
     with RenderClient("127.0.0.1", server.port) as c:
@@ -108,7 +108,7 @@ def test_pipe_mode_matches_tcp():
     import os
     import threading
 
-    from mitsuba_tpu.parallel.server import (
+    from mitsuba_jax.parallel.server import (
         _handshake_client, _read_msg, _write_msg,
     )
 
@@ -142,7 +142,7 @@ def test_ssh_transport_subprocess_pipe(tmp_path):
     import subprocess
     import sys
 
-    from mitsuba_tpu.parallel.server import RenderClient
+    from mitsuba_jax.parallel.server import RenderClient
 
     xml = """<scene>
       <integrator type="path"><integer name="maxDepth" value="2"/></integrator>
@@ -169,7 +169,7 @@ def test_ssh_transport_subprocess_pipe(tmp_path):
     # the spawned server must not grab the test host's accelerator (and
     # env JAX_PLATFORMS is force-set in some images): pin CPU in-process
     boot = ("import jax; jax.config.update('jax_platforms', 'cpu'); "
-            "from mitsuba_tpu.cli import main; "
+            "from mitsuba_jax.cli import main; "
             "raise SystemExit(main(['--listen-stdio']))")
     cli = RenderClient.over_ssh(
         "unused", ssh_cmd=(),

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.integrators.path import PathConfig, render
-from mitsuba_tpu.integrators.volpath import render_volpath_media
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.camera import make_perspective
-from mitsuba_tpu.render.scene import SceneBuilder, cornell_box
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.integrators.path import PathConfig, render
+from mitsuba_jax.integrators.volpath import render_volpath_media
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.camera import make_perspective
+from mitsuba_jax.render.scene import SceneBuilder, cornell_box
 
 
 def _tank_scene(sigma_a, sigma_s=(0.0, 0.0, 0.0)):
@@ -83,8 +83,8 @@ def test_no_media_matches_plain_path():
     """A scene without media renders IDENTICALLY through the media-aware
     tracer and the ambient volpath (same RNG stream, vacuum everywhere),
     and statistically matches the plain path tracer."""
-    from mitsuba_tpu.integrators.volpath import render_volpath
-    from mitsuba_tpu.media import no_medium
+    from mitsuba_jax.integrators.volpath import render_volpath
+    from mitsuba_jax.media import no_medium
 
     scene = cornell_box(width=12, height=12)
     cfg = PathConfig(max_depth=4, spp=32, remat=False)
@@ -104,7 +104,7 @@ def test_no_media_matches_plain_path():
 def test_interior_medium_via_xml(tmp_path):
     """<shape><medium name="interior" type="homogeneous"/></shape> binds a
     per-shape medium through the XML path."""
-    from mitsuba_tpu.io.xml import load_scene_string
+    from mitsuba_jax.io.xml import load_scene_string
 
     xml = """<scene>
       <camera type="perspective">
@@ -142,7 +142,7 @@ def test_sigma_gradient_matches_beer_lambert():
     (detached distance sampling: sigma flows via sigma_s*Tr re-eval)."""
     import jax
 
-    from mitsuba_tpu.core.types import replace
+    from mitsuba_jax.core.types import replace
 
     scene = _tank_scene((0.4,) * 3)
     cfg = PathConfig(max_depth=6, spp=64, remat=False)
@@ -170,10 +170,10 @@ def test_inverse_recover_sigma():
     (E[img]-t)^2 alone. A plain per-pixel MSE against a noisy target is
     minimized where d(bias^2)/dsigma = -dVar/dsigma, i.e. NOT at the true
     sigma — at spp=32 on an 8x8 film that shift is ~0.2 (round-1 failure;
-    the gradient itself matches finite differences, scripts/exp_media_grad.py)."""
+    the gradient itself matches finite differences, tests/test_grad.py)."""
     import jax
 
-    from mitsuba_tpu.core.types import replace
+    from mitsuba_jax.core.types import replace
 
     scene = _tank_scene((0.5,) * 3)
     cfg = PathConfig(max_depth=6, spp=32, remat=False)
@@ -282,7 +282,7 @@ def test_inscatter_nee_crosses_boundary():
 
 def _grid_tank_scene(sigma_a, density, reach=1.0):
     """Tank with a grid-driven interior covering [-1,1]^3."""
-    from mitsuba_tpu.io.volio import grid_world_to_index_transform
+    from mitsuba_jax.io.volio import grid_world_to_index_transform
 
     b = SceneBuilder()
     null = b.materials.null()
@@ -341,8 +341,8 @@ def test_heterogeneous_interior_half_grid():
 
 
 def test_heterogeneous_interior_via_xml(tmp_path):
-    from mitsuba_tpu.io.volio import save_vol
-    from mitsuba_tpu.io.xml import load_scene
+    from mitsuba_jax.io.volio import save_vol
+    from mitsuba_jax.io.xml import load_scene
 
     vol = tmp_path / "dens.vol"
     save_vol(str(vol), np.ones((4, 4, 4, 1), np.float32), (-1, -1, -1),

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from mitsuba_tpu.io.hairio import load_hair, load_hspan, tessellate_fiber
-from mitsuba_tpu.io.xml import load_scene_string
+from mitsuba_jax.io.hairio import load_hair, load_hspan, tessellate_fiber
+from mitsuba_jax.io.xml import load_scene_string
 
 
 def test_hair_tube(tmp_path):
@@ -80,12 +80,12 @@ def test_hair_segment_walk_matches_brute(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from mitsuba_tpu.io.hairio import load_hair_segments
-    from mitsuba_tpu.render.intersect import (
+    from mitsuba_jax.io.hairio import load_hair_segments
+    from mitsuba_jax.render.intersect import (
         GeometryTables, _cyl_seg_hit, _hair_walk, _pack_hair,
         build_geometry)
-    from mitsuba_tpu.render.mesh import make_quad
-    from mitsuba_tpu.render.records import Ray
+    from mitsuba_jax.render.mesh import make_quad
+    from mitsuba_jax.render.records import Ray
 
     p = str(tmp_path / "f.hair")
     _rand_fibers_file(p)
@@ -130,11 +130,11 @@ def test_hair_analytic_matches_tessellated_render(tmp_path):
     polygonized in the tessellated version, so means must agree)."""
     import jax.numpy as jnp
 
-    from mitsuba_tpu.integrators.path import PathConfig, render
+    from mitsuba_jax.integrators.path import PathConfig, render
 
     p = str(tmp_path / "f.hair")
     _rand_fibers_file(p, n_fibers=6)
-    from mitsuba_tpu.io.xml import load_scene_string
+    from mitsuba_jax.io.xml import load_scene_string
 
     base = """
 <scene>

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core import spectral as sp
+from mitsuba_jax.core import spectral as sp
 
 
 def test_rgb_round_trip_exact():
@@ -63,10 +63,10 @@ def _spectral_furnace(albedo, radiance):
     """Closed emitting lambertian sphere, camera inside — per-channel
     L = Le_c * sum_k a_c^k at depth D (test_render_e2e.furnace_scene
     generalized to n channels)."""
-    from mitsuba_tpu.core import transform as tf
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.camera import make_perspective
-    from mitsuba_tpu.render.scene import SceneBuilder
+    from mitsuba_jax.core import transform as tf
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.camera import make_perspective
+    from mitsuba_jax.render.scene import SceneBuilder
 
     b = SceneBuilder()
     mat = b.materials.lambertian(tuple(albedo))
@@ -85,7 +85,7 @@ def test_furnace_render_n8():
     and emission: every channel must independently match
     Le_c * (1 + a_c + a_c^2) — the whole wavefront loop (NEE, MIS,
     emitter hits, film) runs n-channel."""
-    from mitsuba_tpu.integrators.path import PathConfig, render
+    from mitsuba_jax.integrators.path import PathConfig, render
 
     rng = np.random.default_rng(5)
     a = 0.2 + 0.6 * rng.random(N_CH)
@@ -102,7 +102,7 @@ def test_rgb_scene_to_spectral_tables():
     """from_rgb upsampling feeds the material/emitter builders: a
     spectral furnace built from RGB values develops back to ~the RGB
     furnace result through to_rgb."""
-    from mitsuba_tpu.integrators.path import PathConfig, render
+    from mitsuba_jax.integrators.path import PathConfig, render
 
     spec = sp.SpectralBins(N_CH)
     a_rgb = np.array([0.7, 0.5, 0.3])

@@ -3,12 +3,12 @@ per-pixel (R, N, tau) statistics, distinct from ppm_render's global
 radius schedule."""
 import numpy as np
 
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.integrators.photonmap import ppm_render, sppm_render
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.camera import make_perspective
-from mitsuba_tpu.render.scene import SceneBuilder, cornell_box
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.integrators.photonmap import ppm_render, sppm_render
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.camera import make_perspective
+from mitsuba_jax.render.scene import SceneBuilder, cornell_box
 
 
 def test_sppm_statistics_update():

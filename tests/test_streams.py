@@ -6,7 +6,7 @@ import threading
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core.streams import (
+from mitsuba_jax.core.streams import (
     FileStream, InstanceManager, MemoryStream, Serializable, SocketStream,
     Stream, ZlibStream, register_serializable,
 )

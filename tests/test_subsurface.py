@@ -3,11 +3,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.camera import make_perspective
-from mitsuba_tpu.render.scene import SceneBuilder
-from mitsuba_tpu.subsurface import (
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.camera import make_perspective
+from mitsuba_jax.render.scene import SceneBuilder
+from mitsuba_jax.subsurface import (
     dipole_lo, dipole_rd, make_dipole, prepare_dipole,
 )
 
@@ -74,7 +74,7 @@ def test_dipole_translucency():
 
 def test_multipole_thick_slab_converges_to_dipole():
     """For a very thick slab the multipole sum reduces to the dipole."""
-    from mitsuba_tpu.subsurface import multipole_rd
+    from mitsuba_jax.subsurface import multipole_rd
 
     p = make_dipole((2.0,) * 3, (0.1,) * 3)
     r = jnp.linspace(0.05, 3.0, 50)
@@ -86,7 +86,7 @@ def test_multipole_thick_slab_converges_to_dipole():
 def test_multipole_thin_slab_transmits():
     """A thin slab reflects LESS than the half-space dipole (light escapes
     through the back)."""
-    from mitsuba_tpu.subsurface import multipole_rd
+    from mitsuba_jax.subsurface import multipole_rd
 
     p = make_dipole((2.0,) * 3, (0.05,) * 3)
     r = jnp.linspace(0.05, 2.0, 40)
@@ -97,7 +97,7 @@ def test_multipole_thin_slab_transmits():
 
 def test_adipole_anisotropy():
     """Diffusion extends farther along the anisotropy axis."""
-    from mitsuba_tpu.subsurface import adipole_rd
+    from mitsuba_jax.subsurface import adipole_rd
 
     p = make_dipole((2.0,) * 3, (0.1,) * 3)
     axis = jnp.asarray([1.0, 0.0, 0.0])
@@ -117,11 +117,11 @@ def test_indirect_irradiance_captured():
     import jax.numpy as jnp
     import numpy as np
 
-    from mitsuba_tpu.render import mesh as mesh_mod
-    from mitsuba_tpu.render.scene import SceneBuilder
-    from mitsuba_tpu.render.camera import make_perspective
-    from mitsuba_tpu.core import transform as tf
-    from mitsuba_tpu.subsurface.dipole import compute_irradiance
+    from mitsuba_jax.render import mesh as mesh_mod
+    from mitsuba_jax.render.scene import SceneBuilder
+    from mitsuba_jax.render.camera import make_perspective
+    from mitsuba_jax.core import transform as tf
+    from mitsuba_jax.subsurface.dipole import compute_irradiance
 
     b = SceneBuilder()
     white = b.materials.lambertian((0.8, 0.8, 0.8))

@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.camera import make_perspective
-from mitsuba_tpu.render.scene import SceneBuilder
-from mitsuba_tpu.subsurface.dipole import dipole_rd, make_dipole
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.camera import make_perspective
+from mitsuba_jax.render.scene import SceneBuilder
+from mitsuba_jax.subsurface.dipole import dipole_rd, make_dipole
 
 
 def _total_diffuse_reflectance(alpha_p, a_bc):
@@ -77,7 +77,7 @@ def test_sss_visibly_contributes():
 
 
 def test_xml_subsurface_scene():
-    from mitsuba_tpu.io.xml import load_scene_string
+    from mitsuba_jax.io.xml import load_scene_string
 
     xml = """<scene version="0.2.1">
       <camera type="perspective">
@@ -158,7 +158,7 @@ def test_adipole_elongates_along_direction():
     """Scene-level adipole: a point-ish irradiance spot diffuses farther
     along the anisotropy direction than across it (fork adipole.cpp
     capability)."""
-    from mitsuba_tpu.core.types import replace as _replace
+    from mitsuba_jax.core.types import replace as _replace
 
     b = SceneBuilder()
     mat = b.materials.lambertian((0.0, 0.0, 0.0))

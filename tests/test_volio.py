@@ -2,11 +2,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mitsuba_tpu.io.volio import (
+from mitsuba_jax.io.volio import (
     grid_world_to_index_transform, load_vol, save_vol,
 )
-from mitsuba_tpu.io.xml import load_scene_string
-from mitsuba_tpu.media.medium import lookup_density
+from mitsuba_jax.io.xml import load_scene_string
+from mitsuba_jax.media.medium import lookup_density
 
 
 def test_vol_roundtrip(tmp_path):
@@ -25,7 +25,7 @@ def test_grid_transform_and_lookup(tmp_path):
     data = np.broadcast_to(x[None, None, :], (8, 8, 8)).copy()
     p = str(tmp_path / "ramp.vol")
     save_vol(p, data[..., None], [0, 0, 0], [2, 2, 2])
-    from mitsuba_tpu.io.volio import load_heterogeneous_from_vol
+    from mitsuba_jax.io.volio import load_heterogeneous_from_vol
 
     med = load_heterogeneous_from_vol(p, (1.0,) * 3, (0.0,) * 3)
     pts = jnp.asarray([[0.0, 1.0, 1.0], [1.0, 1.0, 1.0], [2.0, 1.0, 1.0]])

@@ -2,9 +2,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from mitsuba_tpu.integrators.path import PathConfig, render
-from mitsuba_tpu.integrators.vpl import generate_vpls, render_vpl
-from mitsuba_tpu.render.scene import cornell_box
+from mitsuba_jax.integrators.path import PathConfig, render
+from mitsuba_jax.integrators.vpl import generate_vpls, render_vpl
+from mitsuba_jax.render.scene import cornell_box
 
 
 def test_generate_vpls_structure():
@@ -51,7 +51,7 @@ def test_vpl_deterministic():
 
 
 def test_vpl_preview():
-    from mitsuba_tpu.render.preview import vpl_preview
+    from mitsuba_jax.render.preview import vpl_preview
 
     scene = cornell_box(width=16, height=16)
     img = vpl_preview(scene, n_paths=32)

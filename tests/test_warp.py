@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.core import warp
-from mitsuba_tpu.core.chi2 import chi2_test
+from mitsuba_jax.core import warp
+from mitsuba_jax.core.chi2 import chi2_test
 
 N = 400_000
 

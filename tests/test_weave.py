@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mitsuba_tpu.io.weave import (
+from mitsuba_jax.io.weave import (
     EWARP, EWEFT, WeaveParseError, load_weave_string,
 )
 
@@ -75,9 +75,9 @@ def test_pattern_grid_dispatch(tmp_path):
     """The packed pattern tables reproduce the file's warp/weft layout
     through the material gather and cloth dispatch (irawan.cpp:109-119:
     uv.y flips, repeat scales, per-cell yarn lookup)."""
-    from mitsuba_tpu.bsdfs import bsdf_eval
-    from mitsuba_tpu.bsdfs.irawan import irawan_diffuse_reflectance
-    from mitsuba_tpu.bsdfs.table import MaterialBuilder
+    from mitsuba_jax.bsdfs import bsdf_eval
+    from mitsuba_jax.bsdfs.irawan import irawan_diffuse_reflectance
+    from mitsuba_jax.bsdfs.table import MaterialBuilder
 
     f = tmp_path / "basket.wift"
     f.write_text(SAMPLE.replace("$alpha", "0.33"))
@@ -117,7 +117,7 @@ def test_pattern_grid_dispatch(tmp_path):
 def test_irawan_filename_via_xml(tmp_path):
     """<bsdf type="irawan"><string name="filename" .../></bsdf> loads the
     weave file through the scene XML path (reference irawan.cpp:64)."""
-    from mitsuba_tpu.io.xml import load_scene_string
+    from mitsuba_jax.io.xml import load_scene_string
 
     (tmp_path / "basket.wift").write_text(
         SAMPLE.replace("$alpha", "0.33"))
@@ -141,7 +141,7 @@ def test_irawan_filename_via_xml(tmp_path):
       </shape>
     </scene>"""
     scene, cfg = load_scene_string(xml, base_dir=str(tmp_path))
-    from mitsuba_tpu.bsdfs.table import CLOTH
+    from mitsuba_jax.bsdfs.table import CLOTH
 
     kinds = np.asarray(scene.materials.kind)
     assert (kinds == CLOTH).any()

@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mitsuba_tpu.render.camera  # register camera plugins
-import mitsuba_tpu.render.sampler  # register sampler plugins
-from mitsuba_tpu.core import transform as tf
-from mitsuba_tpu.integrators import PathConfig, render
-from mitsuba_tpu.io import meshio
-from mitsuba_tpu.io.xml import load_scene, load_scene_string
-from mitsuba_tpu.render import mesh as mesh_mod
-from mitsuba_tpu.render.scene import cornell_box
+import mitsuba_jax.render.camera  # register camera plugins
+import mitsuba_jax.render.sampler  # register sampler plugins
+from mitsuba_jax.core import transform as tf
+from mitsuba_jax.integrators import PathConfig, render
+from mitsuba_jax.io import meshio
+from mitsuba_jax.io.xml import load_scene, load_scene_string
+from mitsuba_jax.render import mesh as mesh_mod
+from mitsuba_jax.render.scene import cornell_box
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -109,7 +109,7 @@ def test_bsdf_types_map():
 </scene>"""
     )
     kinds = np.asarray(scene.materials.kind)
-    from mitsuba_tpu.bsdfs import DIELECTRIC, LAMBERTIAN, ROUGH_CONDUCTOR
+    from mitsuba_jax.bsdfs import DIELECTRIC, LAMBERTIAN, ROUGH_CONDUCTOR
 
     assert list(kinds) == [DIELECTRIC, ROUGH_CONDUCTOR, LAMBERTIAN]
     np.testing.assert_allclose(float(scene.materials.eta[0]), 1.33, atol=1e-5)
@@ -197,10 +197,10 @@ def test_cornell_xml_matches_programmatic():
 
 def test_file_resolver(tmp_path, monkeypatch):
     """FileResolver parity (reference fresolver.h:40): search-path order,
-    absolute pass-through, and MITSUBA_TPU_PATH pickup."""
+    absolute pass-through, and MITSUBA_JAX_PATH pickup."""
     import os
 
-    from mitsuba_tpu.io import resolver as R
+    from mitsuba_jax.io import resolver as R
 
     d1 = tmp_path / "a"
     d2 = tmp_path / "b"
@@ -217,7 +217,7 @@ def test_file_resolver(tmp_path, monkeypatch):
     assert r2.resolve("mesh.obj") == str(d2 / "mesh.obj")
     assert r.paths[0] == str(d1)                          # clone is detached
     # env search path feeds the default resolver
-    monkeypatch.setenv("MITSUBA_TPU_PATH", str(d2))
+    monkeypatch.setenv("MITSUBA_JAX_PATH", str(d2))
     R._default = None
     assert R.default_resolver().resolve("mesh.obj") == str(d2 / "mesh.obj")
     R._default = None
@@ -225,19 +225,19 @@ def test_file_resolver(tmp_path, monkeypatch):
 
 def test_xml_mesh_found_via_search_path(tmp_path, monkeypatch):
     """A scene whose meshes are NOT next to the XML still loads when the
-    mesh dir is on MITSUBA_TPU_PATH."""
+    mesh dir is on MITSUBA_JAX_PATH."""
     import os
     import shutil
 
-    from mitsuba_tpu.io import resolver as R
-    from mitsuba_tpu.io.xml import load_scene_string
+    from mitsuba_jax.io import resolver as R
+    from mitsuba_jax.io.xml import load_scene_string
 
     meshdir = tmp_path / "assets"
     meshdir.mkdir()
     src = os.path.join(os.path.dirname(__file__), "..", "scenes", "meshes",
                        "cbox_walls.obj")
     shutil.copy(src, meshdir / "walls.obj")
-    monkeypatch.setenv("MITSUBA_TPU_PATH", str(meshdir))
+    monkeypatch.setenv("MITSUBA_JAX_PATH", str(meshdir))
     R._default = None
     xml = """<scene>
       <camera type="perspective">
@@ -264,8 +264,8 @@ def test_snow_showcase_scene():
     public XML path."""
     import numpy as np
 
-    from mitsuba_tpu.integrators import PathConfig, render
-    from mitsuba_tpu.io.xml import load_scene
+    from mitsuba_jax.integrators import PathConfig, render
+    from mitsuba_jax.io.xml import load_scene
 
     scene, cfg = load_scene(
         os.path.join(os.path.dirname(__file__), "..", "scenes", "snow.xml"),
